@@ -1,12 +1,10 @@
 #!/usr/bin/env python
 """Detect-stage microbenchmark: splits ops/extrema.detect (+ the
 makePoint/compact stage) into incremental variants to locate the
-absolute cost on hardware.
-
-The detect + keypoints stages cost ~2.5 ms/frame of the ~7.3 ms total
-(bench_stages) on (cap,)-sized arrays — this harness shows which parts
-(dense fit maps, candidate compaction, walk gathers, final compaction,
-Laplacian box sums) actually pay.
+absolute cost on hardware: dense fit maps, candidate compaction, walk
+gathers, final compaction, Laplacian box sums.  Incremental programs
+attribute dispatch overhead to stages, so read the differences with
+care; a profiler trace is the reference.
 
     python benchmarks/bench_detect.py [--iters 50]
 
@@ -29,27 +27,29 @@ import jax.numpy as jnp
 from cuda_surf_tpu import SurfConfig
 from cuda_surf_tpu.io import read_pgm
 from cuda_surf_tpu.frontend import _detect_frame, _make_keypoints
-from cuda_surf_tpu.ops.extrema import detect, fit_dense
+from cuda_surf_tpu.ops.extrema import _candidate_mask, detect, fit_dense
+from cuda_surf_tpu.slam.sequence import render_terrain_pair
 from cuda_surf_tpu.types import compact
-
-DATA = "/root/reference/data"
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--image", default=f"{DATA}/left.pgm")
+    ap.add_argument("--image", help="PGM image (default: the seeded "
+                    "1280x960 terrain frame)")
     args = ap.parse_args()
 
     cfg = SurfConfig(noctaves=4, thresh=4.0, upright=True, max_pts=4096,
                      candidates_per_octave=4096)
-    img = jnp.asarray(read_pgm(args.image))
+    img = jnp.asarray(read_pgm(args.image) if args.image
+                      else render_terrain_pair()[0][0])
     h, w = img.shape
     sched = cfg.hessian_schedule(h, w)
 
     def base(im):
-        ii, pyr, masks, _ = _detect_frame(im, cfg)
-        return ii, pyr, masks
+        ii, pyr, _ = _detect_frame(im, cfg)
+        return ii, pyr, [_candidate_mask(p, sched[o], cfg)
+                         for o, p in enumerate(pyr)]
 
     def plus_fit_maps(im):
         ii, pyr, masks = base(im)
@@ -65,8 +65,8 @@ def main():
         return ii, stens, count, lin
 
     def plus_detect(im):
-        ii, pyr, masks, _ = _detect_frame(im, cfg)
-        return ii, detect(pyr, sched, cfg, cand_masks=masks)
+        ii, pyr, _ = _detect_frame(im, cfg)
+        return ii, detect(pyr, sched, cfg)
 
     def plus_keypoints(im):
         ii, cand = plus_detect(im)
@@ -90,7 +90,9 @@ def main():
         print(json.dumps({"metric": "detect_stage_ms", "stage": name,
                           "cumulative_ms": round(ms, 3),
                           "stage_ms": round(ms - prev, 3),
-                          "device": str(jax.devices()[0])}), flush=True)
+                          "device": {"platform": jax.devices()[0].platform,
+                                     "kind": jax.devices()[0].device_kind}}),
+              flush=True)
         prev = ms
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Multi-device scaling-efficiency harness (BASELINE.md target: >=0.8
-efficiency on a pod slice).
+efficiency across devices).
 
 Measures data-parallel frontend throughput (frames/s) and distributed
 bundle-adjustment iteration time at 1..N devices of the available mesh.

@@ -9,8 +9,8 @@ section 1) — this measures the north-star capability.
 
 Usage:  python benchmarks/eval_terrain.py [--frames 50] [--loop-gap 10]
 
-Recorded result (50 frames, 200x280, seed 0, CPU or TPU identical
-up to RANSAC float noise; orbit radius 0.28):
+Recorded result (50 frames, 200x280, seed 0, orbit radius 0.28; ATE
+is device-independent up to RANSAC float noise):
     VO ATE                      0.192
     + SE(3) graph               0.118
     + Sim(3) after SE(3)        0.089   <- recommended recipe

@@ -1,10 +1,10 @@
-"""cuda_surf_tpu: a TPU-native feature-SLAM framework.
+"""cuda_surf_tpu: a JAX feature-SLAM framework for NVIDIA GPUs.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the
-CUDA-SURF reference (SURF detector + descriptor + brute-force matcher),
-extended into a SLAM/SfM engine (RANSAC two-view geometry,
-Schur-complement bundle adjustment, pose-graph optimization, distributed
-BA over a TPU mesh).  See SURVEY.md for the structural analysis of the
+JAX/XLA implementation with the capabilities of the CUDA-SURF reference
+(SURF detector + descriptor + brute-force matcher), extended into a
+SLAM/SfM engine (RANSAC two-view geometry, Schur-complement bundle
+adjustment, pose-graph optimization, distributed BA over a device
+mesh).  See SURVEY.md for the structural analysis of the
 reference this build targets.
 """
 

@@ -1,7 +1,7 @@
 """Schur-complement bundle adjustment (Levenberg-Marquardt).
 
 New capability (BASELINE.json north star); no reference counterpart.
-TPU-first design decisions:
+Design decisions:
 
  - observations are stored per-point, padded to a static max observations
    per point (M), so every array is static-shape and the point (V) blocks
@@ -11,7 +11,7 @@ TPU-first design decisions:
  - the reduced camera system S = U - W V^-1 W^T is accumulated as dense
    (C, 6, C, 6) via scatter-add over the M x M camera-pair products of
    each point -- the analogue of the classic sparse Schur trick, laid out
-   for the MXU (batched 3x3/6x6 matmuls) instead of sparse maps;
+   as batched 3x3/6x6 matmuls instead of sparse maps;
  - the LM loop is a fixed-iteration masked loop (lax.fori_loop with
    accept/reject damping), jit-compatible.
 
@@ -49,6 +49,7 @@ class BAState(NamedTuple):
     points: jnp.ndarray  # (P, 3)
 
 
+@f32_matmuls
 def project(R, t, X):
     """World point -> normalized image coords for cameras (.., 3, 3)/(.., 3)."""
     xc = (R @ X[..., None])[..., 0] + t
@@ -123,8 +124,7 @@ def _schur_system(state: BAState, prob: BAProblem, lam, n_cameras: int,
     C = n_cameras
 
     # Camera diagonal blocks U and rhs g_c, accumulated per observation
-    # via one-hot contractions (TPU scatter-adds run ~10x slower than
-    # the equivalent MXU matmul at these sizes).
+    # via one-hot contractions in place of scatter-adds.
     cam_oh = jax.nn.one_hot(prob.cam_idx.reshape(-1), C,
                             dtype=Jc.dtype)              # (P*M, C)
     U_obs = jnp.einsum("pmia,pmib->pmab", Jc, Jc)        # (P, M, 6, 6)
@@ -148,7 +148,7 @@ def _schur_system(state: BAState, prob: BAProblem, lam, n_cameras: int,
     # the observation axis into per-point per-CAMERA aggregates first:
     #   A_p[c] = sum_{m: cam=c} Y_m,  B_p[c] = sum_{m: cam=c} W_m
     #   S[c,d] = sum_p A_p[c] B_p[d]^T
-    # which is ONE (6C, 3P) @ (3P, 6C) MXU matmul — linear in P*M*C.
+    # which is ONE (6C, 3P) @ (3P, 6C) matmul — linear in P*M*C.
     cam_oh_m = cam_oh.reshape(P, M, C)
     A = jnp.einsum("pmc,pmax->pcax", cam_oh_m, Y)        # (P, C, 6, 3)
     B = jnp.einsum("pmc,pmax->pcax", cam_oh_m, W)        # (P, C, 6, 3)
@@ -180,8 +180,8 @@ def _diag_only(A):
 
 def _sym3_inv(M):
     """Closed-form cofactor inverse of batched symmetric 3x3 blocks —
-    pure elementwise math; a batched jnp.linalg.inv lowers to LU and
-    costs milliseconds on TPU at these block counts."""
+    pure elementwise math, in place of a batched jnp.linalg.inv (an LU
+    per block)."""
     m00, m01, m02 = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     m11, m12, m22 = M[..., 1, 1], M[..., 1, 2], M[..., 2, 2]
     c00 = m11 * m22 - m12 * m12

@@ -1,10 +1,10 @@
-"""Distributed Schur-complement bundle adjustment over a TPU mesh.
+"""Distributed Schur-complement bundle adjustment over a device mesh.
 
 The BASELINE.json north star: the map (points + observations) is
 block-partitioned across devices along the point axis; each device
 eliminates its local point blocks and accumulates its contribution to the
-reduced camera system, which is summed with `psum` over the ICI mesh
-(replacing the NCCL all-reduce a GPU framework would use); the small dense
+reduced camera system, which is summed with `psum` over the mesh (XLA
+lowers it to an NCCL all-reduce across GPUs); the small dense
 camera solve is replicated, and back-substitution for point updates stays
 local to each shard.  Communication per LM iteration is exactly one
 all-reduce of (6C)^2 + 6C floats — independent of the number of points.

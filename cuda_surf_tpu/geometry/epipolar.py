@@ -1,12 +1,12 @@
 """Two-view geometry: batched 8-point essential matrix + RANSAC + pose.
 
 New capability on top of the SURF frontend (BASELINE.json configs 2-3).
-RANSAC is reformulated TPU-first: instead of a sequential hypothesize-
-and-verify loop, a static batch of H hypotheses is sampled, solved and
-scored entirely in parallel (vmap over the hypothesis axis; the minimal
-solver is an eigendecomposition of the 9x9 normal matrix, the scoring a
-dense Sampson-error matrix) -- RANSAC is embarrassingly parallel and maps
-onto the VPU/MXU as batched linear algebra.
+RANSAC is reformulated for a data-parallel device: instead of a
+sequential hypothesize-and-verify loop, a static batch of H hypotheses
+is sampled, solved and scored entirely in parallel (vmap over the
+hypothesis axis; the minimal solver is an eigendecomposition of the 9x9
+normal matrix, the scoring a dense Sampson-error matrix) -- RANSAC is
+embarrassingly parallel and maps onto batched linear algebra.
 """
 
 from __future__ import annotations
@@ -43,9 +43,9 @@ def _normalize_pts(p, mask):
 def _smallest_eigvec9(M, iters: int = 4):
     """Eigenvector of the smallest eigenvalue of a PSD 9x9 matrix via
     regularized inverse iteration: a few direct 9x9 solves, which vmap
-    over hypotheses, where a batched jnp.linalg.eigh costs tens of ms
-    on TPU.  Convergence ratio is (lam_min+eps)/(lam_2+eps) — one or
-    two steps suffice for the near-null systems RANSAC builds."""
+    over hypotheses in place of a batched jnp.linalg.eigh.  Convergence
+    ratio is (lam_min+eps)/(lam_2+eps) — one or two steps suffice for
+    the near-null systems RANSAC builds."""
     eps = jnp.float32(1e-9) * jnp.trace(M) + jnp.float32(1e-20)
     B = M + eps * jnp.eye(9, dtype=M.dtype)
     # deterministic start with all components populated
@@ -59,6 +59,7 @@ def _smallest_eigvec9(M, iters: int = 4):
     return jax.lax.fori_loop(0, iters, body, v)
 
 
+@f32_matmuls
 def _eight_point(x1, x2, mask):
     """Fundamental/essential system from >= 8 normalized-camera
     correspondences: smallest eigenvector of the 9x9 normal matrix.
@@ -77,6 +78,7 @@ def _eight_point(x1, x2, mask):
     return T2.T @ F @ T1
 
 
+@f32_matmuls
 def project_essential(F):
     """Project onto the essential manifold (singular values 1, 1, 0)."""
     U, s, Vt = jnp.linalg.svd(F)
@@ -101,11 +103,10 @@ def _sampson_inlier_counts(Es, x1, x2, valid, thresh):
     """Inlier counts for a whole batch of E candidates at once.
 
     Es (M, 3, 3) -> (M,) int32.  The per-candidate products are two
-    (K, 3) @ (3, 3M) MXU matmuls plus elementwise math — a
-    vmap-of-small-matmuls formulation of the same scoring lowers to
-    thousands of tiny batched ops and costs ~100 ms at M=2560, K=4096
-    on TPU; this form is HBM-bound (~2 x K x M x 3 floats) and runs in
-    ~1 ms.  The threshold test num/max(den, 1e-12) < t is evaluated as
+    (K, 3) @ (3, 3M) matmuls plus elementwise math, in place of a
+    vmap-of-small-matmuls formulation that lowers to thousands of tiny
+    batched ops; this form is memory-bound (~2 x K x M x 3 floats).
+    The threshold test num/max(den, 1e-12) < t is evaluated as
     num < t * max(den, 1e-12) to skip the division."""
     ones = jnp.ones((*x1.shape[:-1], 1), x1.dtype)
     h1 = jnp.concatenate([x1, ones], -1)                    # (K, 3)
@@ -129,9 +130,8 @@ def triangulate(R, t, x1, x2):
 
     Inhomogeneous linear system per point: the 4 DLT rows with w=1 give
     A[:, :3] X = -A[:, 3], solved in closed form via the 3x3 normal
-    equations (Cramer) — pure elementwise math that batches over K,
-    where a batched 4x4 eigh costs ~10 ms on TPU.  Returns (K, 3)
-    points in cam1 frame.
+    equations (Cramer) — pure elementwise math that batches over K, in
+    place of a batched 4x4 eigh.  Returns (K, 3) points in cam1 frame.
     """
     P1 = jnp.concatenate([jnp.eye(3, dtype=R.dtype),
                           jnp.zeros((3, 1), R.dtype)], 1)
@@ -171,7 +171,7 @@ def recover_pose(E, x1, x2, mask):
     The 4 candidates' triangulations + depth tests run as ONE vmapped
     batch (triangulate is closed-form elementwise math, so batching the
     candidate axis just widens the arrays instead of issuing 4 separate
-    op chains — ~4x fewer tiny TPU ops than a Python loop)."""
+    op chains — ~4x fewer tiny ops than a Python loop)."""
     U, _, Vt = jnp.linalg.svd(E)
     d = jnp.sign(jnp.linalg.det(U) * jnp.linalg.det(Vt))
     U = U * d  # ensure proper rotations
@@ -187,6 +187,24 @@ def recover_pose(E, x1, x2, mask):
     counts = ((z1 > 0) & (z2 > 0) & mask[None, :]).sum(-1)
     best = jnp.argmax(counts)
     return Rs[best], ts[best], Xs[best]
+
+
+_N_FINALISTS = 32
+
+
+def _best_finalist(Es, scores, cand_ok, x1, x2, valid, thresh):
+    """Project the _N_FINALISTS best-scoring hypotheses onto the
+    essential manifold and return the one of least truncated Sampson
+    cost.  Slots the solver marked not-ok (placeholders, spurious roots)
+    can fill the finalists when few hypotheses are valid; they never
+    win while a valid one exists."""
+    fin = jax.lax.top_k(scores, min(_N_FINALISTS, scores.shape[0]))[1]
+    Ep = jax.vmap(project_essential)(Es[fin])
+    fin_err = jax.vmap(sampson_error, in_axes=(0, None, None))(Ep, x1, x2)
+    fin_cost = jnp.sum(jnp.where(valid[None, :],
+                                 jnp.minimum(fin_err, thresh), 0.0), axis=1)
+    fin_cost = jnp.where(cand_ok[fin], fin_cost, jnp.inf)
+    return Ep[jnp.argmin(fin_cost)]
 
 
 @f32_matmuls
@@ -209,9 +227,8 @@ def ransac_essential(x1: jnp.ndarray, x2: jnp.ndarray, valid: jnp.ndarray,
     # Sample the (raw % count)-th valid row via inverse-CDF binary
     # search on the validity prefix sum: searchsorted(cdf, r+1) is the
     # index of the (r+1)-th valid element — bit-identical to gathering
-    # from a valid-first index compaction, without paying compaction's
-    # 3-level gather (~0.4 ms at K=4096 on TPU; the H*n_pts-point
-    # binary search is ~free).
+    # from a valid-first index compaction, without compaction's 3-level
+    # gather (the H*n_pts-point binary search is small).
     cdf = jnp.cumsum(valid.astype(jnp.int32))
     n_pts = 8 if solver == "8pt" else 5
     raw = jax.random.randint(key, (n_hypotheses, n_pts), 0,
@@ -229,19 +246,17 @@ def ransac_essential(x1: jnp.ndarray, x2: jnp.ndarray, valid: jnp.ndarray,
         cand_ok = jnp.ones(Es.shape[0], bool)
     else:
         from .fivepoint import five_point
-        # gn_iters=2: inside RANSAC the polish only has to keep the
+        # gn_iters=4: inside RANSAC the polish only has to keep the
         # consensus ranking honest — the winner's E is re-derived by two
         # guided least-squares refits on its inlier set below, so the
-        # full 8-iteration polish (~1.5 ms of serialized small ops on
-        # TPU) buys nothing here.  Probe (benchmarks/probe_track.py):
-        # best consensus count identical at 8/4/2/0 iterations.
+        # full 8-iteration polish buys nothing here (best consensus
+        # count identical at 8/4/2/0 iterations).
         Es, cand_ok = five_point(x1[sample], x2[sample],
                                  gn_iters=4)               # (H, C, 3, 3)
         Es = Es.reshape(-1, 3, 3)
         cand_ok = cand_ok.reshape(-1)
     counts = _sampson_inlier_counts(Es, x1, x2, valid, inlier_thresh)
     scores = jnp.where(cand_ok, counts, -1)
-    best = jnp.argmax(scores)
 
     # Guided refits on the consensus set (two rounds of least-squares on
     # inliers, re-scoring after each) — recovers accuracy the minimal
@@ -251,9 +266,17 @@ def ransac_essential(x1: jnp.ndarray, x2: jnp.ndarray, valid: jnp.ndarray,
     # quasi-planar data moves F far from the essential manifold), and
     # accepting on the unprojected score used to hand recover_pose a
     # geometry 30-60 degrees off.  Hypotheses still score unprojected
-    # (a per-hypothesis 3x3 SVD is TPU-hostile); only the winner and
-    # the two refits pay the projection.
-    E = project_essential(Es[best])
+    # (in place of a per-hypothesis 3x3 SVD); only the _N_FINALISTS
+    # best-scoring hypotheses and the two refits pay the projection.
+    # The projected finalists are ranked by their truncated Sampson cost
+    # (MSAC: sum of min(err, thresh) over valid matches), not by the
+    # unprojected count: with a high inlier ratio many hypotheses tie on
+    # that count, and the first of them can be an E far off the manifold
+    # whose support collapses when projected (terrain sequence: 119 -> 2
+    # inliers in ~3% of runs), or the mirror solution of a weak-parallax
+    # pair that explains as many matches with a larger residual
+    # (~10 deg rotation / ~90 deg translation-direction error in ~5%).
+    E = _best_finalist(Es, scores, cand_ok, x1, x2, valid, inlier_thresh)
     err = sampson_error(E, x1, x2)
     inliers = (err < inlier_thresh) & valid
     n_best = inliers.sum()

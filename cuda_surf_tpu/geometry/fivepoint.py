@@ -15,11 +15,11 @@ LINEAR in (x, y) with z-polynomial coefficients: B(z) [x, y, 1]^T = 0.
 det B(z) = 0 is a degree-10 univariate polynomial; (x, y) come from
 B(z0)'s nullspace (cross product of rows).
 
-TPU-first root step: all 10 roots of det B at once by Durand-Kerner
+Batched root step: all 10 roots of det B at once by Durand-Kerner
 simultaneous iteration — elementwise complex arithmetic, batches over
-hypotheses, robust to root clusters (a batched nonsymmetric eig does
-not exist on TPU).  Near-real roots are kept; in RANSAC a lost complex
-pair is simply two fewer candidates.
+hypotheses, robust to root clusters (JAX has no batched nonsymmetric
+eig on accelerators).  Near-real roots are kept; in RANSAC a lost
+complex pair is simply two fewer candidates.
 """
 
 from __future__ import annotations
@@ -152,10 +152,9 @@ def _det_bz(a, b, c):
 def _nullspace4(Q):
     """Basis of the 4-dim nullspace of batched (..., 5, 9) full-rank
     systems via branch-free Gauss-Jordan with column pivoting — pure
-    elementwise math plus two tiny matmuls.  Replaces a batched
-    jnp.linalg.qr(mode="complete"), which costs tens of ms on TPU
-    (sequential Householder lowering) for the same 128-hypothesis
-    batch.  The basis is NOT orthonormal; the Nister parametrization
+    elementwise math plus two tiny matmuls, in place of a batched
+    jnp.linalg.qr(mode="complete") (sequential Householder lowering)
+    over the 128-hypothesis batch.  The basis is NOT orthonormal; the Nister parametrization
     E = x E1 + y E2 + z E3 + E4 is valid for any nullspace basis
     (degenerate E4-components are covered by the reversed root pass,
     see _roots_dk).  Returns (..., 9, 4)."""
@@ -361,7 +360,7 @@ def five_point(x1, x2, gn_iters: int = 8):
     Q = jnp.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2,
                    u1, v1, one], axis=-1)             # (..., 5, 9)
     # 4-dim nullspace by branch-free Gauss-Jordan (any basis works for
-    # the Nister parametrization; batched QR costs tens of ms on TPU)
+    # the Nister parametrization; no batched QR)
     null = _nullspace4(Q)                             # (..., 9, 4)
     # Orthonormalize the basis (modified Gram-Schmidt): the raw GJ basis
     # can be wildly skewed, which poisons the float32 constraint matrix

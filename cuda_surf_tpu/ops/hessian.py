@@ -1,6 +1,6 @@
 """Box-filter Hessian determinant response pyramid.
 
-TPU-native re-derivation of calcHessianMultiConst + cuCalcHessianMulti
+JAX re-derivation of calcHessianMultiConst + cuCalcHessianMulti
 (surfd.cu:445-481, 2829-2894) and the cross-octave halfImage reuse
 (surf.cpp:253-258).  Instead of per-pixel gathers from constant-memory
 parameters, every box-sum corner becomes a *strided slice* of the integral
@@ -11,31 +11,22 @@ bandwidth-bound, which is the roofline for this stage.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
 from ..config import SurfConfig, ScaleParams
-from .integral import phase_planes_all
 
 
-def response_pyramid(ii: jnp.ndarray, cfg: SurfConfig, h: int, w: int,
-                     img: jnp.ndarray | None = None):
+def response_pyramid(ii: jnp.ndarray, cfg: SurfConfig, h: int, w: int):
     """-> list over octaves of (max_scale, Ho, Wo) float32 response maps.
 
     Out-of-border entries are zero, matching the reference's steady-state
     zeroed omem buffer (surf.cpp:347-348).  Scales 0-1 of octaves > 0 are
     seeded by 2x decimation of scales max_scale-3 / max_scale-1 of the
     previous octave (halfImage, surfd.cu:321-331).
-
-    When `img` is given on TPU (non-doubled), the phase planes are
-    computed from it with exact triangular MXU matmuls
-    (integral.phase_integral) instead of strided slices of `ii`.
     """
     shapes = cfg.octave_shapes(h, w)
     sched = cfg.hessian_schedule(h, w)
-    use_mxu_phases = (img is not None and not cfg.doubled
-                      and jax.default_backend() == "tpu")
     pyr = []
     for o in range(cfg.noctaves):
         oh, ow = shapes[o]
@@ -43,12 +34,7 @@ def response_pyramid(ii: jnp.ndarray, cfg: SurfConfig, h: int, w: int,
         if o > 0:
             layers.append(pyr[o - 1][cfg.max_scale - 3, : 2 * oh : 2, : 2 * ow : 2])
             layers.append(pyr[o - 1][cfg.max_scale - 1, : 2 * oh : 2, : 2 * ow : 2])
-        if use_mxu_phases:
-            # ALL of this octave's phase planes in two MXU matmuls
-            # (per-phase scans cost ~276 tiny matmuls over the pyramid)
-            phases = phase_planes_all(img, sched[o].scales[0].delta)
-        else:
-            phases = {}
+        phases = {}
         for sp in sched[o].scales:
             layers.append(_response_layer(ii, sp, oh, ow, phases))
         pyr.append(jnp.stack(layers))
@@ -59,15 +45,11 @@ def _response_layer(ii: jnp.ndarray, sp: ScaleParams, oh: int, ow: int,
                     phases: dict):
     """One scale's response map via phase-decimated box sums.
 
-    Strided reads are hostile to the TPU's lane layout, so instead of 32
-    stride-`delta` slices per scale, the integral image is decimated once
-    per needed (row, col) phase mod delta — `phases` caches these across
-    the octave's scales — and every box-sum corner becomes a unit-stride
-    slice of a phase plane, which XLA fuses into the elementwise
-    determinant computation with no extra materialization.  On TPU the
-    phase planes come straight from the image via exact triangular MXU
-    matmuls (integral.phase_integral); elsewhere they are strided slices
-    of `ii`.
+    The integral image is decimated once per needed (row, col) phase mod
+    delta — `phases` caches these strided slices across the octave's
+    scales — and every box-sum corner becomes a unit-stride slice of a
+    phase plane, which XLA fuses into the elementwise determinant
+    computation.
     """
     b1, d = sp.border1, sp.delta
     ny, nx = oh - 2 * b1, ow - 2 * b1
@@ -79,8 +61,6 @@ def _response_layer(ii: jnp.ndarray, sp: ScaleParams, oh: int, ow: int,
         # ii[d*(b1+y) + dy, d*(b1+x) + dx] for the full (ny, nx) grid.
         p, q = dy % d, dx % d
         if (p, q) not in phases:
-            # CPU/debug path (the TPU path pre-builds every plane via
-            # integral.phase_planes_all)
             phases[(p, q)] = lax.slice(ii, (p, q), (ih, iw), (d, d))
         ph = phases[(p, q)]
         y0, x0 = b1 + dy // d, b1 + dx // d

@@ -1,11 +1,11 @@
 """Data-parallel frame-batch frontend.
 
-The reference processes one frame per call on one device; the TPU build
+The reference processes one frame per call on one device; this build
 scales frontend throughput by sharding a frame batch across the device
 mesh (BASELINE.md: "frames sharded across chips for throughput").  The
-per-frame pipeline is pure, so data parallelism is one `jax.vmap` under
-a sharding constraint — XLA partitions the whole program with zero
-cross-device communication (each chip runs its frames end to end).
+per-frame pipeline is pure, so data parallelism needs zero cross-device
+communication: under `shard_map` each device runs its own frames end
+to end.
 """
 
 from __future__ import annotations
@@ -35,10 +35,9 @@ class BatchSurf:
         from jax.sharding import PartitionSpec as P
         axis = self.mesh.axis_names[0]
 
-        # shard_map + lax.map (not vmap): each device loops over its
-        # local frames, so the Pallas kernels run per-frame exactly as in
-        # the single-frame path (vmap would try to batch their scalar-
-        # prefetch grids, which TPU Pallas does not support).
+        # shard_map + lax.map: each device loops over its local frames
+        # with exactly the single-frame program (vmap against lax.map is
+        # an open measurement, ROADMAP Queue 1).
         def _local(images):
             return jax.lax.map(
                 lambda im: detect_and_compute(im, self.cfg), images)
@@ -49,8 +48,6 @@ class BatchSurf:
 
         @jax.jit
         def _match(kp1, d1, kp2, d2):
-            # lax.map, not vmap: the TPU path uses the fused Pallas
-            # matcher, which must run per-pair (like the frontend)
             return jax.lax.map(lambda t: match_keypoints(*t),
                                (kp1, d1, kp2, d2))
 

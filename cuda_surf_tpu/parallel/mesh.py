@@ -1,8 +1,8 @@
 """Device-mesh construction and sharding helpers.
 
 The reference is single-device with no communication layer (SURVEY.md
-section 2.5); this module is the distribution backbone the TPU build adds:
-a named mesh over (data, model-ish) axes, with frame batches sharded over
+section 2.5); this module is the distribution backbone this build adds:
+a named 1-D mesh over the devices, with frame batches sharded over
 the `frames` axis (data parallelism for frontend throughput) and bundle-
 adjustment blocks sharded over the same axis with `psum`/`reduce_scatter`
 reduction of the Schur camera system (ba/distributed.py).

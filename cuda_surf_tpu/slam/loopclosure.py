@@ -1,7 +1,7 @@
 """Loop-closure detection and pose-graph integration.
 
 Completes the SLAM backend (BASELINE.json north star): candidate loop
-pairs are scored with the same MXU brute-force matcher as tracking and
+pairs are scored with the same brute-force matcher as tracking and
 verified with RANSAC essential-matrix geometry; accepted closures become
 extra pose-graph edges (monocular scale for the loop translation is
 approximated from the current trajectory estimate — a pragmatic SE(3)
@@ -53,8 +53,8 @@ class LoopDetector:
     signatures with one small host matmul and only the `prescreen_topk`
     most similar candidates (cosine >= `prescreen_min_sim`) run the
     expensive matcher+RANSAC verification.  Full exhaustive verification
-    of an F-frame history is O(F) RANSAC dispatches per query (~8.6 ms
-    each); the prescreen caps it at `prescreen_topk` regardless of F.
+    of an F-frame history is O(F) RANSAC dispatches per query; the
+    prescreen caps it at `prescreen_topk` regardless of F.
     Set `prescreen_topk=None` to restore exhaustive verification.
 
     Memory: full features live on the HOST (the device only ever holds

@@ -6,7 +6,7 @@ matches are chained into multi-view landmark tracks on the host (cheap
 index bookkeeping), and a sliding window of keyframes is refined with
 the Schur-complement LM optimizer (`ba.run_lm`) over a static-shape
 `BAProblem` (tracks padded to a capacity, observations padded to the
-window size — the TPU-native formulation).
+window size, so every jitted step keeps one static shape).
 """
 
 from __future__ import annotations

@@ -109,6 +109,14 @@ def render_terrain_sequence(n_frames: int = 50, h: int = 200, w: int = 280,
 
     Returns (frames uint8 (N, h, w), centres (N, 3), Intrinsics).
     """
+    poses = terrain_orbit_poses(n_frames, loop)
+    return _render_terrain(poses, h, w, seed, relief)
+
+
+def terrain_orbit_poses(n_frames: int, loop: bool = True) -> list:
+    """(R world->cam, centre) poses of :func:`render_terrain_sequence`'s
+    orbit.  With `loop` the orbit closes over `n_frames`; without it the
+    camera covers 0.4 rad of the orbit."""
     poses = []
     for i in range(n_frames):
         ph = 2 * np.pi * i / n_frames if loop else 0.4 * i / n_frames
@@ -124,7 +132,22 @@ def render_terrain_sequence(n_frames: int = 50, h: int = 200, w: int = 280,
         Rz = np.array([[np.cos(yaw), -np.sin(yaw), 0],
                        [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]])
         poses.append((Rz, c))
-    return _render_terrain(poses, h, w, seed, relief)
+    return poses
+
+
+def render_terrain_pair(h: int = 960, w: int = 1280, seed: int = 0):
+    """Seeded two-view terrain pair at the reference demo's frame size
+    (1280x960, main.cpp:239-245): the first two frames of an open
+    :func:`render_terrain_sequence` orbit (baseline ~0.057, relative
+    roll ~1.4 deg).  Returns (frames uint8 (2, h, w), poses
+    [(R world->cam, centre)] * 2, Intrinsics)."""
+    poses = terrain_orbit_poses(2, loop=False)
+    # texture scales down to 2 texels keep fine blobs at this resolution
+    # (~3.5k keypoints per frame at thresh 4.0, like the reference's own
+    # stereo pair)
+    frames, _, intr = _render_terrain(poses, h, w, seed, 0.45,
+                                      cells=(2, 4, 8, 16, 32, 64))
+    return frames, poses, intr
 
 
 def render_forward_sequence(n_frames: int = 20, h: int = 200, w: int = 280,
@@ -144,17 +167,18 @@ def render_forward_sequence(n_frames: int = 20, h: int = 200, w: int = 280,
     return _render_terrain(poses, h, w, seed, relief)
 
 
-def _render_terrain(poses, h, w, seed, relief):
+def _render_terrain(poses, h, w, seed, relief, cells=(8, 16, 32, 64)):
     """Ray-march render of the procedural height-field for a list of
-    (R world->cam with d_z == 1, centre) poses.  Returns
-    (frames uint8 (N, h, w), centres (N, 3), Intrinsics)."""
+    (R world->cam with d_z == 1, centre) poses; `cells` are the texture
+    noise scales in texels.  Returns (frames uint8 (N, h, w), centres
+    (N, 3), Intrinsics)."""
     rng = np.random.default_rng(seed)
     intr = Intrinsics(fx=0.9 * w, fy=0.9 * w, cx=w / 2.0, cy=h / 2.0)
     T = 1024
     # S-curve contrast stretch: the raw multiscale noise is mid-heavy
     # (std ~25/255) and starves the Hessian detector; pushing mass
     # toward the extremes roughly doubles the detected keypoint count
-    tex = _multiscale_texture(rng, T)
+    tex = _multiscale_texture(rng, T, cells)
     tex = (0.5 + 0.5 * np.tanh(2.2 * (2.0 * tex - 1.0))) * 255.0
     elev = _multiscale_texture(np.random.default_rng(seed + 1), T,
                                cells=(64, 128, 256))

@@ -10,7 +10,7 @@ loop edges measure the accumulated relative scale — Gauss-Newton then
 distributes the loop's scale discrepancy smoothly around the cycle.
 
 New capability (no reference counterpart; the reference has no SLAM
-backend at all, SURVEY.md section 1).  TPU-first: per-edge 7-dof
+backend at all, SURVEY.md section 1).  Per-edge 7-dof
 residual Jacobians via vmapped forward-mode autodiff; the solvers
 (one-hot dense / matrix-free block-Jacobi CG) are shared with the
 SE(3) graph in posegraph.py — the block dimension is inferred.

@@ -1,6 +1,6 @@
 """Core data model: fixed-capacity struct-of-arrays pytrees.
 
-TPU-native replacement of the reference's array-of-structs `SurfPoint` /
+JAX replacement of the reference's array-of-structs `SurfPoint` /
 `SurfData` (surf_structures.h:7-41).  XLA wants static shapes and SoA
 layout, so keypoint sets are padded to a static capacity with a validity
 mask and an explicit count instead of the reference's atomicInc-compacted
@@ -82,11 +82,11 @@ def compact(mask: jax.Array, capacity: int, *arrays):
     buffers of length `capacity` (valid-first, stable order; invalid
     slots are zero).
 
-    TPU replacement for atomic append: gather-based — the i-th output is
-    located with a vectorized binary search over the mask's prefix sum
-    (scatter-based compaction costs ~10x more on TPU: a scatter over the
-    full input, here millions of pyramid cells, vs `capacity` binary
-    searches).  Returns (count, valid, *compacted).
+    Replacement for atomic append: gather-based — the i-th output is
+    located with a vectorized search over the mask's prefix sum
+    (`capacity` searches, in place of a scatter over the full input,
+    here millions of pyramid cells).  Returns (count, valid,
+    *compacted).
     """
     mask = mask.reshape(-1)
     n = mask.shape[0]
@@ -94,9 +94,9 @@ def compact(mask: jax.Array, capacity: int, *arrays):
     if n >= (1 << 17):
         # three-level: locate the i-th set bit's 128-element block with
         # two compare-and-count reductions (superblock, then block via
-        # one row gather) instead of a binary search — searchsorted's
-        # serial gather rounds cost ~1 ms at 2M mask / 8K slots — then
-        # find the in-block position from a row-gathered lane prefix sum
+        # one row gather) instead of searchsorted's serial binary-search
+        # gather rounds, then find the in-block position from a
+        # row-gathered lane prefix sum
         B = 128
         nb = -(-n // B)
         mp = jnp.pad(mask, (0, nb * B - n)).reshape(nb, B)
@@ -127,8 +127,7 @@ def compact(mask: jax.Array, capacity: int, *arrays):
     # Fast path: when every array is 1-D with 4-byte (or bool) elements,
     # bitcast-pack them into one (n, A) uint32 matrix and gather ALL of
     # them with a single row take — each separate jnp.take is its own
-    # gather kernel on TPU (~tens of us of fixed cost), so compacting 7
-    # arrays costs 7 kernels otherwise.
+    # gather kernel, so compacting 7 arrays costs 7 kernels otherwise.
     from jax import lax as _lax
 
     def _pack(a):

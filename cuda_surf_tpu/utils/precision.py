@@ -1,10 +1,10 @@
 """Matmul-precision control.
 
-On TPU, float32 matmuls default to bfloat16 MXU passes — right for the
-big descriptor/matcher contractions, wrong for small geometry linear
-algebra (rotation composition, normal equations) where bf16 rounding is
-a 0.5% relative error.  Decorate accuracy-critical functions so every
-dot/einsum they trace uses full float32 precision.
+A default-precision float32 matmul may run in reduced precision on an
+accelerator (TF32 on NVIDIA tensor cores, ~1e-3 relative) — wrong for
+geometry linear algebra (rotation composition, normal equations) and
+for scores compared against a reference.  Decorate accuracy-critical
+functions so every dot/einsum they trace uses full float32 precision.
 """
 
 from __future__ import annotations

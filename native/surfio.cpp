@@ -1,8 +1,8 @@
-// Native IO runtime for the TPU SURF/SLAM framework.
+// Native IO runtime for the SURF/SLAM framework.
 //
 // The reference implements its host runtime in C++ (image IO through
 // OpenCV, main.cpp:173-182; pitched staging buffers, main.cpp:212-226).
-// The TPU build keeps the compute path in JAX/XLA/Pallas and implements
+// This build keeps the compute path in JAX/XLA and implements
 // the host-side IO runtime natively here: fast PGM/PPM codecs and a
 // threaded prefetching sequence loader that decodes frames ahead of the
 // accelerator (the host->device pipeline the demo/SLAM loops drive).

@@ -1,7 +1,7 @@
 // surforacle: standalone CPU oracle of the reference SURF pipeline.
 //
 // Independent scalar re-derivation of the math specified by the
-// reference (/root/reference/surfd.cu, surf.cpp — see SURVEY.md §3.5):
+// reference (its surfd.cu, surf.cpp — see SURVEY.md §3.5):
 // integral image (integralRow/Col, surfd.cu:129-165), box-filter
 // Hessian pyramid (calcHessianMultiConst, surfd.cu:445-481; parameter
 // derivations cuCalcHessianMulti surfd.cu:2844-2865), fused NMS +
@@ -21,7 +21,7 @@
 // between the two is a genuine cross-check of both.
 //
 // Usage: surforacle image.pgm [--rotated] [--extended] [--doubled]
-//                            [--octaves N] [--thresh T]
+//                            [--octaves N] [--thresh T] [--max-pts N]
 // Output (stdout):
 //   <num_points> <nfeatures>
 //   x y scale strength laplace octave ori      (one line per point)
@@ -710,7 +710,7 @@ int main(int argc, char** argv) {
   if (argc < 2) {
     std::fprintf(stderr,
                  "usage: %s image.pgm [--rotated] [--extended] [--doubled] "
-                 "[--octaves N] [--thresh T]\n",
+                 "[--octaves N] [--thresh T] [--max-pts N]\n",
                  argv[0]);
     return 2;
   }
@@ -728,6 +728,8 @@ int main(int argc, char** argv) {
       cfg.noctaves = std::atoi(argv[++a]);
     else if (s == "--thresh" && a + 1 < argc)
       cfg.thresh = std::atof(argv[++a]);
+    else if (s == "--max-pts" && a + 1 < argc)
+      cfg.max_pts = std::atoi(argv[++a]);
     else {
       std::fprintf(stderr, "unknown arg %s\n", s.c_str());
       return 2;

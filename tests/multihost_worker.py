@@ -3,7 +3,7 @@
 Launched by tests/test_multihost.py with SURF_COORDINATOR /
 SURF_NUM_PROCESSES / SURF_PROCESS_ID set; each process owns 4 virtual
 CPU devices, so the global mesh spans 8 devices across 2 processes —
-the same code path a 2-host TPU slice runs over DCN."""
+the same code path a 2-host GPU cluster runs over its network."""
 
 import os
 import sys

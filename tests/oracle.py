@@ -1,11 +1,11 @@
 """Pure-NumPy oracle of the reference SURF pipeline.
 
-Independent re-derivation of the math in /root/reference/surfd.cu +
+Independent re-derivation of the math in the reference's surfd.cu +
 surf.cpp (see SURVEY.md section 3.5) used as the golden contract for the
-JAX/Pallas implementation.  Vectorized NumPy, float32 discipline where the
+JAX implementation.  Vectorized NumPy, float32 discipline where the
 reference computes in float32.  The reference itself has no tests; its
 "oracle" was CPU mirrors of device code (SURVEY.md section 4) — this file
-plays that role for the TPU build.
+plays that role for this build.
 """
 
 from __future__ import annotations

@@ -171,38 +171,3 @@ def test_match_cross_check():
     assert ok.sum() >= 28
     # every surviving cross-checked match is the true permutation pair
     assert (np.asarray(mc.index)[ok] == true_match[ok]).all()
-
-
-def test_fused_matcher_parity(rng):
-    """The fused Pallas matcher (ops/matcher_pallas.py, interpret mode
-    here; the real kernel is the TPU default) must reproduce
-    ops/matcher.match's best/second/index exactly — including argmax
-    first-index ties, tile-boundary ties, and invalid set-2 columns."""
-    from cuda_surf_tpu.ops.matcher import match
-    from cuda_surf_tpu.ops.matcher_pallas import fused_best2
-
-    n1, n2 = 300, 1500   # forces N1 row-block and N2 tile padding
-    d1 = rng.normal(size=(n1, 64)).astype(np.float32)
-    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
-    d2 = rng.normal(size=(n2, 64)).astype(np.float32)
-    # exact duplicates at tile-crossing positions -> cross-tile ties
-    d2[700] = d1[5]
-    d2[1300] = d1[5]
-    d2[10] = d1[7]
-    d2[11] = d1[7]
-    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
-    v2 = np.ones(n2, bool)
-    v2[100:140] = False
-
-    neg = -1e30
-    best, second, idx = fused_best2(jnp.asarray(d1), jnp.asarray(d2),
-                                    jnp.asarray(v2), interpret=True)
-    m = match(jnp.asarray(d1), jnp.ones(n1, bool), jnp.asarray(d2),
-              jnp.asarray(v2), jnp.zeros(n2), jnp.zeros(n2))
-    np.testing.assert_array_equal(np.asarray(idx), np.asarray(m.index))
-    # scores differ only by bf16x3 accumulation order (~4e-6)
-    np.testing.assert_allclose(np.asarray(best), np.asarray(m.score),
-                               atol=1e-5)
-    amb = np.where(np.asarray(second) > neg,
-                   np.asarray(second) / (np.asarray(best) + 1e-6), 0.0)
-    np.testing.assert_allclose(amb, np.asarray(m.ambiguity), atol=1e-5)

@@ -79,6 +79,50 @@ def test_ransac_recovers_pose():
     assert inl[: int(0.3 * len(x1))].mean() < 0.1
 
 
+def _essential(R, t):
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    E = tx @ R
+    return E / np.linalg.norm(E)
+
+
+@pytest.mark.parametrize("n_ok", [1, 3])
+def test_ransac_finalists_skip_invalid_candidates(n_ok):
+    """With fewer valid hypotheses than finalists, a not-ok slot never
+    wins, even when its cost is the lowest."""
+    from cuda_surf_tpu.geometry.epipolar import (_best_finalist,
+                                                 project_essential)
+    x1, x2, R, t = _synthetic_pair(np.random.default_rng(5), n=40)
+    E_true = _essential(R, t)
+    rng = np.random.default_rng(6)
+    Es = np.stack([E_true + rng.normal(0, 1e-2, (3, 3)) for _ in range(40)])
+    cand_ok = np.zeros(40, bool)
+    cand_ok[[7, 20, 33][:n_ok]] = True
+    Es[~cand_ok] = E_true                  # exact, but marked not-ok
+    scores = np.where(cand_ok, 10, -1)
+    E = np.asarray(_best_finalist(
+        jnp.asarray(Es, jnp.float32), jnp.asarray(scores),
+        jnp.asarray(cand_ok), jnp.asarray(x1), jnp.asarray(x2),
+        jnp.ones(40, bool), 1e-4))
+    allowed = [np.asarray(project_essential(jnp.asarray(e, jnp.float32)))
+               for e in Es[cand_ok]]
+    assert min(np.abs(E - a).max() for a in allowed) == 0.0
+
+
+def test_ransac_5pt_few_matches():
+    """A handful of exact matches: most five-point slots are not-ok, and
+    the pose still comes out right."""
+    x1, x2, R_true, t_true = _synthetic_pair(np.random.default_rng(8),
+                                             n=8)
+    res = jax.jit(ransac_essential,
+                  static_argnames=("n_hypotheses", "solver"))(
+        jnp.asarray(x1), jnp.asarray(x2), jnp.ones(8, bool),
+        jax.random.PRNGKey(2), n_hypotheses=3, solver="5pt")
+    assert int(res.n_inliers) == 8
+    dR = np.asarray(res.R, np.float64) @ R_true.T
+    ang = np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))
+    assert ang < 0.5
+
+
 def test_sampson_zero_for_exact(rng):
     x1, x2, R, t = _synthetic_pair(rng)
     E = np.cross(t, np.eye(3)) @ R  # E = [t]_x R ... as (3,3)

@@ -1,5 +1,7 @@
 import functools
 
+import pytest
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -51,3 +53,25 @@ def test_cross_octave_decimation(small_image):
     oh, ow = o1.shape[1:]
     np.testing.assert_array_equal(o1[0], o0[cfg.max_scale - 3, :2*oh:2, :2*ow:2])
     np.testing.assert_array_equal(o1[1], o0[cfg.max_scale - 1, :2*oh:2, :2*ow:2])
+
+
+@pytest.mark.parametrize("mode", ["doubled", "init_mask_15"])
+def test_pyramid_modes_match_oracle(small_image, mode):
+    """The strided-slice pyramid against the oracle in the 2x-upsampled
+    mode (sampling 4 on the doubled integral) and with the 15x15 initial
+    mask (init_lobe 5, max_scale 7)."""
+    kw = (dict(doubled=True, noctaves=3) if mode == "doubled"
+          else dict(init_mask_size=15, noctaves=2))
+    cfg = SurfConfig(**kw)
+    h, w = small_image.shape
+    ii_np = oracle.integral_image(small_image, cfg.doubled)
+    want = oracle.response_pyramid(ii_np, cfg, h, w)
+    got = jax.jit(lambda im: response_pyramid(
+        integral_image(im, cfg.doubled), cfg, h, w))(jnp.asarray(small_image))
+    assert len(got) == cfg.noctaves
+    for o in range(cfg.noctaves):
+        g = np.asarray(got[o])
+        assert g.shape == want[o].shape == (cfg.max_scale,
+                                            *cfg.octave_shapes(h, w)[o])
+        assert np.abs(want[o]).max() > 0
+        np.testing.assert_allclose(g, want[o], rtol=1e-6, atol=5e-7)

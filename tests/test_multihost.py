@@ -1,7 +1,7 @@
 """Multi-process runtime: 2 CPU processes x 4 virtual devices form one
 8-device global mesh; cross-process psum and distributed BA must agree
-on both ranks (the DCN code path of SURVEY.md section 5, exercised
-single-machine)."""
+on both ranks (the multi-host code path of SURVEY.md section 5,
+exercised single-machine)."""
 
 import os
 import re

@@ -3,7 +3,7 @@
 native/surforacle.cpp is an independent scalar re-derivation of the
 reference pipeline's math (the role of the reference's own CPU host
 mirrors, surfd.cu:3082-3186 / 2915-3051): it shares no code with the
-JAX/Pallas framework OR with tests/oracle.py, so agreement here
+JAX framework OR with tests/oracle.py, so agreement here
 cross-validates both.  The golden counts (2739 / 3443 on the reference
 stereo fixtures) asserted by test_golden_fixture are reproduced by this
 binary from first principles."""
@@ -14,50 +14,27 @@ import subprocess
 import numpy as np
 import pytest
 
+from conftest import REFERENCE_DATA
 from cuda_surf_tpu import Surf, SurfConfig
+from cuda_surf_tpu.io.oracle import build_oracle, run_oracle
 
-_NATIVE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "native")
-_SRC = os.path.join(_NATIVE, "surforacle.cpp")
-_BIN = os.path.join(_NATIVE, "surforacle")
-
-
-def _build():
-    if os.path.exists(_BIN) and (
-            os.path.getmtime(_BIN) >= os.path.getmtime(_SRC)):
-        return _BIN
-    try:
-        subprocess.run(["g++", "-O2", "-std=c++17", "-o", _BIN, _SRC],
-                       check=True, capture_output=True, timeout=180)
-        return _BIN
-    except (OSError, subprocess.SubprocessError):
-        return None
-
-
-def _run_oracle(image_path, *flags):
-    out = subprocess.run([_BIN, image_path, *flags], capture_output=True,
-                         text=True, check=True, timeout=300).stdout
-    lines = out.splitlines()
-    n, nf = map(int, lines[0].split())
-    kp = np.array([[float(v) for v in lines[1 + i].split()]
-                   for i in range(n)])
-    desc = np.array([[float(v) for v in lines[1 + n + i].split()]
-                     for i in range(n)])
-    assert desc.shape == (n, nf)
-    return kp, desc
+_LEFT = os.path.join(REFERENCE_DATA, "left.pgm")
+_RIGHT = os.path.join(REFERENCE_DATA, "right.pgm")
 
 
 @pytest.fixture(scope="module", autouse=True)
 def oracle_binary():
-    if _build() is None:
-        pytest.skip("no C++ toolchain for the native oracle")
+    try:
+        build_oracle()
+    except (OSError, subprocess.SubprocessError) as e:
+        pytest.skip(f"no C++ toolchain for the native oracle: {e!r}")
 
 
 def _compare(image, image_path, cfg, *flags, check_ori=False):
     surf = Surf(cfg)
     kps, d = surf.detect_and_compute(image)
     v = np.asarray(kps.valid)
-    okp, od = _run_oracle(image_path, *flags)
+    okp, od = run_oracle(image_path, *flags)
     assert int(kps.count) == len(okp)            # exact count parity
     fx, fy = np.asarray(kps.x)[v], np.asarray(kps.y)[v]
     D = ((fx[:, None] - okp[None, :, 0]) ** 2
@@ -80,8 +57,8 @@ def _compare(image, image_path, cfg, *flags, check_ori=False):
 @pytest.mark.slow
 def test_upright_golden_pair(left_image, right_image):
     cfg = SurfConfig(max_pts=4096, candidates_per_octave=4096)
-    lk, ld, _ = _compare(left_image, "/root/reference/data/left.pgm", cfg)
-    rk, rd, _ = _compare(right_image, "/root/reference/data/right.pgm", cfg)
+    lk, ld, _ = _compare(left_image, _LEFT, cfg)
+    rk, rd, _ = _compare(right_image, _RIGHT, cfg)
     assert len(lk) == 2739 and len(rk) == 3443   # reference-true counts
     # matcher semantics on the oracle descriptors reproduce the golden
     # mean score (findMaxCorr, surfd.cu:2610-2669)
@@ -94,7 +71,7 @@ def test_upright_golden_pair(left_image, right_image):
 def test_extended_golden(left_image):
     cfg = SurfConfig(max_pts=4096, candidates_per_octave=4096,
                      extended=True)
-    _compare(left_image, "/root/reference/data/left.pgm", cfg,
+    _compare(left_image, _LEFT, cfg,
              "--extended")
 
 
@@ -102,5 +79,5 @@ def test_extended_golden(left_image):
 def test_rotated_golden(left_image):
     cfg = SurfConfig(max_pts=4096, candidates_per_octave=4096,
                      upright=False)
-    _compare(left_image, "/root/reference/data/left.pgm", cfg,
+    _compare(left_image, _LEFT, cfg,
              "--rotated", check_ori=True)
